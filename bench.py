@@ -1,4 +1,4 @@
-"""Headline benchmark: full tracking-step throughput on one TPU chip.
+"""Headline benchmark: tracking-step throughput and server GBA rate on one GPU.
 
 Measures the client hot loop at the reference's EuRoC operating point
 (752x480 mono, 1000-feature ORB budget over 8 pyramid levels): ORB
@@ -9,14 +9,14 @@ jitted program.
 Methodology: the step is iterated ON DEVICE inside a ``lax.fori_loop``
 (each iteration consumes a different image and the previous pose, and a
 carried checksum keeps every output live), and one scalar is fetched at
-the end. This counts pure device throughput and is robust to remote
-platforms where ``block_until_ready`` does not await completion.
+the end, which waits for the device.
 
 Baseline: the reference client must sustain the EuRoC camera rate of
 20 fps (cslam/conf/vi_euroc.yaml Camera.fps) to run real time;
 ``vs_baseline`` is the speedup over that real-time requirement.
 
-Prints ONE JSON line.
+Needs a GPU (exits non-zero without one). Prints ONE JSON line, which
+names the device it ran on.
 """
 import json
 import time
@@ -33,8 +33,8 @@ def bench_gba(jax, jnp):
     cslam/conf/config.yaml budgets). The dense-W formulation would need a
     ~9.7 GB Schur W here; the matrix-free PCG path is what the server
     actually runs. Returns LM iterations/s."""
-    from motioncheck_ccm_slam_tpu.parallel import sharded_ba
-    from motioncheck_ccm_slam_tpu.solvers import ba_core
+    from motioncheck_ccm_slam.models import gba as gba_mod
+    from motioncheck_ccm_slam.solvers import ba_core
 
     rng = np.random.default_rng(7)
     C, L = 2048, 65536
@@ -62,12 +62,9 @@ def bench_gba(jax, jnp):
         uv=jnp.asarray(uv), inv_sigma2=jnp.ones(O, jnp.float32),
         valid=jnp.ones(O, bool),
     )
-    # the product solver stack: fused tile-stream kernels on TPU, with the
-    # dual-layout matrix-free formulation as fallback (same routing as
-    # models/gba._pick_solver on one device)
-    gba = sharded_ba.make_tile_gba(
-        None, pcg_iters=25,
-        fallback=sharded_ba.make_matrix_free_gba(pcg_iters=25))
+    # the product solver choice (models/gba._pick_solver): the matrix-free
+    # solver on one device, the mesh-sharded one on several
+    gba = gba_mod._pick_solver(C, L, pcg_iters=25)
     fixed_cam = jnp.zeros(C, bool).at[0].set(True)
     fixed_lm = jnp.zeros(L, bool)
     args = (jnp.asarray(Tcw), jnp.asarray(pts), obs, K, fixed_cam, fixed_lm)
@@ -84,10 +81,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    # persistent compile cache: the 8-level extractor graph is large and its
-    # TPU compile dominates cold-start (~minutes); cache it across runs
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    from motioncheck_ccm_slam.utils import compile_cache
+
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench.py needs a GPU; JAX found {dev.platform}")
+    compile_cache.enable()
 
     from __graft_entry__ import entry
 
@@ -140,9 +139,11 @@ def main():
         "value": round(fps, 2),
         "unit": "frames/s",
         "vs_baseline": round(fps / 20.0, 2),
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
         "extra": {
             # full-map GBA at the server operating point (2048 KFs, 65k MPs,
-            # ~2M obs), matrix-free PCG solver, one chip
+            # ~2M obs), the solver _pick_solver chooses
             "gba_iters_per_s_2048kf_2Mobs": round(gba_iters_per_s, 3),
             # the reference's GBA budget is 20 LM iterations
             # (cslam/conf/config.yaml:129): seconds per full server GBA

@@ -1,7 +1,7 @@
 // Native wire-protocol runtime for the agent<->server transport.
 //
 // The reference gets its transport runtime from roscpp/TCPROS (C++); this is
-// the equivalent piece for the TPU build: length-prefixed framing with CRC32
+// the equivalent piece for this build: length-prefixed framing with CRC32
 // integrity over arbitrary payload buffers, plus a vectorized XOR-popcount
 // utility used by host-side integrity checks. Compiled to a shared library
 // and bound via ctypes (no pybind11 dependency in this image).

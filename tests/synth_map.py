@@ -4,9 +4,9 @@ pose-graph, and GBA tests."""
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import Config
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.ops import lie
+from motioncheck_ccm_slam.config import Config
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.ops import lie
 
 
 class SynthWorld:

@@ -6,8 +6,8 @@ replay (SURVEY.md §4 test strategy).
 """
 import numpy as np
 
-from motioncheck_ccm_slam_tpu.config import Config
-from motioncheck_ccm_slam_tpu.ops import lie
+from motioncheck_ccm_slam.config import Config
+from motioncheck_ccm_slam.ops import lie
 import jax.numpy as jnp
 
 

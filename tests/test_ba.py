@@ -2,9 +2,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.ops import lie
-from motioncheck_ccm_slam_tpu.solvers import ba_core, pose_opt, local_ba
-from motioncheck_ccm_slam_tpu.config import CameraParams
+from motioncheck_ccm_slam.ops import lie
+from motioncheck_ccm_slam.solvers import ba_core, pose_opt, local_ba
+from motioncheck_ccm_slam.config import CameraParams
 
 CAM = CameraParams()
 K = jnp.asarray(CAM.K())
@@ -54,7 +54,7 @@ def test_pose_opt_converges():
     Tcw_true = Tcw_all[0]
     # observations from the true pose
     pc = lie.transform_points(Tcw_true, pts[None])[0]
-    from motioncheck_ccm_slam_tpu.ops import geometry
+    from motioncheck_ccm_slam.ops import geometry
     uv = geometry.project(pc[None], K)[0]
     # perturb the pose
     noise = jnp.asarray(
@@ -74,7 +74,7 @@ def test_pose_opt_rejects_outliers():
     Tcw_all, pts, _ = synth_scene(rng, n_cams=1, n_pts=200)
     Tcw_true = Tcw_all[0]
     pc = lie.transform_points(Tcw_true, pts[None])[0]
-    from motioncheck_ccm_slam_tpu.ops import geometry
+    from motioncheck_ccm_slam.ops import geometry
     uv = np.asarray(geometry.project(pc[None], K)[0]).copy()
     # corrupt 20% of observations
     n_out = 40

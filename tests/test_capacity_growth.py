@@ -4,11 +4,11 @@ grow append-only so slot indices survive)."""
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, MotionCheckParams,
 )
-from motioncheck_ccm_slam_tpu.models import gba as gba_mod
-from motioncheck_ccm_slam_tpu.models import map_state as ms
+from motioncheck_ccm_slam.models import gba as gba_mod
+from motioncheck_ccm_slam.models import map_state as ms
 
 from synth_map import SynthWorld, add_pass, arc_poses
 

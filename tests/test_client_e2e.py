@@ -3,12 +3,12 @@ mapping -> trajectory accuracy (the minimum end-to-end slice of SURVEY.md §7)."
 import numpy as np
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams,
 )
-from motioncheck_ccm_slam_tpu.models.tracking import TrackState
-from motioncheck_ccm_slam_tpu.system.client import ClientSystem
-from motioncheck_ccm_slam_tpu.utils.csv_io import ate_rmse
+from motioncheck_ccm_slam.models.tracking import TrackState
+from motioncheck_ccm_slam.system.client import ClientSystem
+from motioncheck_ccm_slam.utils.csv_io import ate_rmse
 
 from synth_scene import SynthScene
 

@@ -3,12 +3,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams,
 )
-from motioncheck_ccm_slam_tpu.parallel import comm as comm_mod
-from motioncheck_ccm_slam_tpu.system.client import ClientSystem
-from motioncheck_ccm_slam_tpu.system.server import ServerSystem
+from motioncheck_ccm_slam.parallel import comm as comm_mod
+from motioncheck_ccm_slam.system.client import ClientSystem
+from motioncheck_ccm_slam.system.server import ServerSystem
 
 from synth_scene import SynthScene
 

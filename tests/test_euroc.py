@@ -16,10 +16,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu import cli
-from motioncheck_ccm_slam_tpu.config import CameraParams, Config
-from motioncheck_ccm_slam_tpu.ops import lie
-from motioncheck_ccm_slam_tpu.utils.euroc import EurocSequence
+from motioncheck_ccm_slam import cli
+from motioncheck_ccm_slam.config import CameraParams, Config
+from motioncheck_ccm_slam.ops import lie
+from motioncheck_ccm_slam.utils.euroc import EurocSequence
 
 from synth_scene import SynthScene
 

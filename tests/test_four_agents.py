@@ -6,10 +6,10 @@ exactly once."""
 import numpy as np
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import SystemParams
-from motioncheck_ccm_slam_tpu.parallel import comm as comm_mod
-from motioncheck_ccm_slam_tpu.system.client import ClientSystem
-from motioncheck_ccm_slam_tpu.system.server import ServerSystem
+from motioncheck_ccm_slam.config import SystemParams
+from motioncheck_ccm_slam.parallel import comm as comm_mod
+from motioncheck_ccm_slam.system.client import ClientSystem
+from motioncheck_ccm_slam.system.server import ServerSystem
 
 from synth_scene import SynthScene
 from test_multi_agent import BASE, OffsetScene

@@ -6,11 +6,11 @@ the same-or-finer-scale condition (KeyFrameCullingV3 :816)."""
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams,
 )
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.models import mapping
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.models import mapping
 
 from synth_map import SynthWorld, add_pass, arc_poses
 

@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.ops import geometry, lie
-from motioncheck_ccm_slam_tpu.config import CameraParams
+from motioncheck_ccm_slam.ops import geometry, lie
+from motioncheck_ccm_slam.config import CameraParams
 
 
 def test_project_backproject():

@@ -7,14 +7,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, CommParams, Config, ExtractorParams,
     MotionCheckParams,
 )
-from motioncheck_ccm_slam_tpu.models import gba as gba_mod
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.parallel import comm as comm_mod
-from motioncheck_ccm_slam_tpu.system.server import ServerSystem
+from motioncheck_ccm_slam.models import gba as gba_mod
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.parallel import comm as comm_mod
+from motioncheck_ccm_slam.system.server import ServerSystem
 
 from synth_map import SynthWorld, add_pass, arc_poses
 

@@ -10,11 +10,11 @@ import os
 import numpy as np
 import pytest
 
-from motioncheck_ccm_slam_tpu import cli
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam import cli
+from motioncheck_ccm_slam.config import (
     CameraParams, Config, KITTI_CONFIG, KITTI_HALF_RES_CONFIG,
 )
-from motioncheck_ccm_slam_tpu.utils.kitti import KittiSequence
+from motioncheck_ccm_slam.utils.kitti import KittiSequence
 
 from synth_scene import SynthScene
 

@@ -2,7 +2,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.ops import lie
+from motioncheck_ccm_slam.ops import lie
 
 
 def rand_rot(rng, n=()):

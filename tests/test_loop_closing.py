@@ -3,15 +3,15 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, OptParams,
     PlaceRecParams,
 )
-from motioncheck_ccm_slam_tpu.models import database as db_mod
-from motioncheck_ccm_slam_tpu.models import loop_closing
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.models import vocabulary as vocab_mod
-from motioncheck_ccm_slam_tpu.ops import lie
+from motioncheck_ccm_slam.models import database as db_mod
+from motioncheck_ccm_slam.models import loop_closing
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.models import vocabulary as vocab_mod
+from motioncheck_ccm_slam.ops import lie
 
 from synth_map import SynthWorld, add_pass, arc_poses
 

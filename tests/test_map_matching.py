@@ -5,12 +5,12 @@ consistent-group machinery of LoopFinder::DetectLoop)."""
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, OptParams,
     PlaceRecParams,
 )
-from motioncheck_ccm_slam_tpu.models import map_matching
-from motioncheck_ccm_slam_tpu.models import map_state as ms
+from motioncheck_ccm_slam.models import map_matching
+from motioncheck_ccm_slam.models import map_state as ms
 
 from synth_map import SynthWorld, add_pass, arc_poses
 

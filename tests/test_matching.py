@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.ops import matching
+from motioncheck_ccm_slam.ops import matching
 
 
 def rand_desc(rng, n):

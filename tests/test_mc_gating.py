@@ -7,16 +7,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, MotionCheckParams,
     OptParams, PlaceRecParams,
 )
-from motioncheck_ccm_slam_tpu.models import database as db_mod
-from motioncheck_ccm_slam_tpu.models import gba as gba_mod
-from motioncheck_ccm_slam_tpu.models import loop_closing
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.models import vocabulary as vocab_mod
-from motioncheck_ccm_slam_tpu.solvers import local_ba
+from motioncheck_ccm_slam.models import database as db_mod
+from motioncheck_ccm_slam.models import gba as gba_mod
+from motioncheck_ccm_slam.models import loop_closing
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.models import vocabulary as vocab_mod
+from motioncheck_ccm_slam.solvers import local_ba
 
 from synth_map import add_pass, ring_poses, ring_world
 

@@ -7,13 +7,13 @@ server LocalMapping across ClientHandler::ChangeMap
 (/root/reference/src/Mapping.cpp:737-775, src/ClientHandler.cpp:221)."""
 import numpy as np
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, OptParams,
     PlaceRecParams,
 )
-from motioncheck_ccm_slam_tpu.models import map_matching
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.system.server import ServerSystem
+from motioncheck_ccm_slam.models import map_matching
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.system.server import ServerSystem
 
 from synth_map import SynthWorld, add_pass, arc_poses
 

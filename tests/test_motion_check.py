@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import MotionCheckParams
-from motioncheck_ccm_slam_tpu.models import motion_check as mc
+from motioncheck_ccm_slam.config import MotionCheckParams
+from motioncheck_ccm_slam.models import motion_check as mc
 
 
 PARAMS = MotionCheckParams(skip_edge_kfs=3)
@@ -82,7 +82,7 @@ def test_scale_change_alone_is_tolerated():
 
 
 def test_apply_verdict_revert_and_delete():
-    from motioncheck_ccm_slam_tpu.models import map_state as ms
+    from motioncheck_ccm_slam.models import map_state as ms
 
     n = 24
     kf = ms.empty_kf_block(n, 8)

@@ -5,17 +5,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, PlaceRecParams,
     SystemParams,
 )
-from motioncheck_ccm_slam_tpu.parallel import comm as comm_mod
-from motioncheck_ccm_slam_tpu.system.client import ClientSystem
-from motioncheck_ccm_slam_tpu.system.server import ServerSystem
+from motioncheck_ccm_slam.parallel import comm as comm_mod
+from motioncheck_ccm_slam.system.client import ClientSystem
+from motioncheck_ccm_slam.system.server import ServerSystem
 
 from synth_scene import SynthScene
 
-from motioncheck_ccm_slam_tpu.config import OptParams
+from motioncheck_ccm_slam.config import OptParams
 
 BASE = Config().replace(
     extractor=ExtractorParams(max_features=512, n_levels=4, n_features=512),

@@ -2,8 +2,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import ExtractorParams
-from motioncheck_ccm_slam_tpu.ops import orb, image as image_ops
+from motioncheck_ccm_slam.config import ExtractorParams
+from motioncheck_ccm_slam.ops import orb, image as image_ops
 
 
 def dots_image(h, w, n_dots=120, seed=0):
@@ -81,7 +81,7 @@ def test_extract_orb_end_to_end():
 def test_descriptors_stable_under_translation():
     """Shifting the image shifts keypoints but leaves descriptors mostly
     intact — the self-consistency property matching relies on."""
-    from motioncheck_ccm_slam_tpu.ops import matching
+    from motioncheck_ccm_slam.ops import matching
 
     base = checkerboard(200, 260, sq=24, seed=1)
     shift = 8

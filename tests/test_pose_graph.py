@@ -7,16 +7,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, OptParams,
     PlaceRecParams,
 )
-from motioncheck_ccm_slam_tpu.models import database as db_mod
-from motioncheck_ccm_slam_tpu.models import loop_closing
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.models import vocabulary as vocab_mod
-from motioncheck_ccm_slam_tpu.ops import lie
-from motioncheck_ccm_slam_tpu.solvers import pose_graph
+from motioncheck_ccm_slam.models import database as db_mod
+from motioncheck_ccm_slam.models import loop_closing
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.models import vocabulary as vocab_mod
+from motioncheck_ccm_slam.ops import lie
+from motioncheck_ccm_slam.solvers import pose_graph
 
 from synth_map import ring_poses, ring_world, add_pass
 

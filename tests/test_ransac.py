@@ -2,8 +2,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.ops import lie, ransac, geometry
-from motioncheck_ccm_slam_tpu.config import CameraParams
+from motioncheck_ccm_slam.ops import lie, ransac, geometry
+from motioncheck_ccm_slam.config import CameraParams
 
 CAM = CameraParams()
 K = jnp.asarray(CAM.K())

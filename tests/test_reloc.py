@@ -8,12 +8,12 @@ the first good frame the client must snap back onto the map.
 import numpy as np
 import pytest
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, TrackingParams,
 )
-from motioncheck_ccm_slam_tpu.models.tracking import TrackState
-from motioncheck_ccm_slam_tpu.system.client import ClientSystem
-from motioncheck_ccm_slam_tpu.utils.csv_io import ate_rmse
+from motioncheck_ccm_slam.models.tracking import TrackState
+from motioncheck_ccm_slam.system.client import ClientSystem
+from motioncheck_ccm_slam.utils.csv_io import ate_rmse
 
 from synth_scene import SynthScene
 

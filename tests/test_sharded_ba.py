@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-from motioncheck_ccm_slam_tpu.parallel import sharded_ba
-from motioncheck_ccm_slam_tpu.solvers import ba_core, local_ba
-from motioncheck_ccm_slam_tpu.ops import lie
+from motioncheck_ccm_slam.parallel import sharded_ba
+from motioncheck_ccm_slam.solvers import ba_core, local_ba
+from motioncheck_ccm_slam.ops import lie
 from test_ba import synth_scene, K
 
 

@@ -10,15 +10,15 @@ map-fusion seam graph fed by multiple measured MapMatchHits
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams, OptParams,
     PlaceRecParams,
 )
-from motioncheck_ccm_slam_tpu.models import loop_closing, map_merging
-from motioncheck_ccm_slam_tpu.models import database as db_mod
-from motioncheck_ccm_slam_tpu.models import map_state as ms
-from motioncheck_ccm_slam_tpu.models import vocabulary as vocab_mod
-from motioncheck_ccm_slam_tpu.ops import lie, matching
+from motioncheck_ccm_slam.models import loop_closing, map_merging
+from motioncheck_ccm_slam.models import database as db_mod
+from motioncheck_ccm_slam.models import map_state as ms
+from motioncheck_ccm_slam.models import vocabulary as vocab_mod
+from motioncheck_ccm_slam.ops import lie, matching
 
 from synth_map import SynthWorld, add_pass, arc_poses
 
@@ -128,7 +128,7 @@ def test_seam_measurement_zero_residual_for_applied_alignment():
         jnp.asarray(T_pre), jnp.asarray(T_match), A
     )
     # the pose the transform actually wrote into the fused map
-    from motioncheck_ccm_slam_tpu.solvers import pose_graph
+    from motioncheck_ccm_slam.solvers import pose_graph
     U_pre = lie.make_sim3(jnp.asarray(T_pre[:3, :3]),
                           jnp.asarray(T_pre[:3, 3]), jnp.float32(1.0))
     T_post = pose_graph.se3_from_sim3((U_pre @ lie.sim3_inv(A))[None])[0]

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from motioncheck_ccm_slam_tpu.parallel import codec, comm as comm_mod, transport
-from motioncheck_ccm_slam_tpu.utils import native
+from motioncheck_ccm_slam.parallel import codec, comm as comm_mod, transport
+from motioncheck_ccm_slam.utils import native
 
 
 def make_msg(seed=0, n_kf=2, n_mp=3):
@@ -124,7 +124,7 @@ def test_tcp_transport_roundtrip():
 def test_agent_done_roundtrip_and_finalba_arming():
     """The explicit end-of-stream flag survives the wire and arms FINALBA
     immediately (the multi-process replacement for the 30s idle heuristic)."""
-    from motioncheck_ccm_slam_tpu.config import Config
+    from motioncheck_ccm_slam.config import Config
 
     msg = comm_mod.MapMsg(sender_client_id=0, agent_done=True)
     out = codec.decode(codec.encode(msg))
@@ -132,8 +132,8 @@ def test_agent_done_roundtrip_and_finalba_arming():
     assert codec.decode(codec.encode(make_msg())).agent_done is False
 
     # channel-level: goodbye marks the server comm finished without idling
-    from motioncheck_ccm_slam_tpu.models import map_state as ms
-    from motioncheck_ccm_slam_tpu.system.server import ServerClientHandler
+    from motioncheck_ccm_slam.models import map_state as ms
+    from motioncheck_ccm_slam.system.server import ServerClientHandler
 
     cfg = Config()
     ch = comm_mod.Channel()

@@ -2,9 +2,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.config import CommParams
-from motioncheck_ccm_slam_tpu.parallel import comm as comm_mod
-from motioncheck_ccm_slam_tpu.models import map_state as ms
+from motioncheck_ccm_slam.config import CommParams
+from motioncheck_ccm_slam.parallel import comm as comm_mod
+from motioncheck_ccm_slam.models import map_state as ms
 
 from synth_map import SynthWorld, add_pass, arc_poses
 from test_aux import CONFIG as AUX_CONFIG

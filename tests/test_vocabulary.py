@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from motioncheck_ccm_slam_tpu.models import vocabulary as voc
-from motioncheck_ccm_slam_tpu.models.database import KeyFrameDatabase
+from motioncheck_ccm_slam.models import vocabulary as voc
+from motioncheck_ccm_slam.models.database import KeyFrameDatabase
 
 
 def rand_desc(rng, n):

@@ -15,7 +15,7 @@ not present in this image:
 
 Writes BENCH_accuracy.json at the repo root. For the real-dataset run once
 EuRoC is available:
-    python -m motioncheck_ccm_slam_tpu.cli euroc --seq <dir>/MH_01_easy --out /tmp/mh01
+    python -m motioncheck_ccm_slam.cli euroc --seq <dir>/MH_01_easy --out /tmp/mh01
 
 Usage: python tools/bench_accuracy.py [--agents 3] [--frames 520]
        [--small] [--skip-mc-off]
@@ -32,7 +32,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def run_pass(agents, frames, out, small, motion_check):
-    from motioncheck_ccm_slam_tpu.cli import cmd_synth
+    from motioncheck_ccm_slam.cli import cmd_synth
 
     ns = argparse.Namespace(
         agents=agents, frames=frames, out=out, small=small,

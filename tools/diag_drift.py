@@ -12,16 +12,12 @@ import sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tests"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-import jax
-
-jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS", "cpu"))
-
 import numpy as np
 
-from motioncheck_ccm_slam_tpu.config import (
+from motioncheck_ccm_slam.config import (
     CameraParams, CapacityParams, Config, ExtractorParams,
 )
-from motioncheck_ccm_slam_tpu.system.client import ClientSystem
+from motioncheck_ccm_slam.system.client import ClientSystem
 from synth_scene import SynthScene
 
 CONFIG = Config().replace(
@@ -46,7 +42,7 @@ def main(n_frames=80):
             return orig(self, fr)
         cls._track = _track_novel
     if os.environ.get("NO_BA"):
-        from motioncheck_ccm_slam_tpu.models import mapping as mapping_mod
+        from motioncheck_ccm_slam.models import mapping as mapping_mod
         mapping_mod.run_local_ba = lambda *a, **k: 0.0
     if os.environ.get("NO_KFS"):
         client.tracker.need_new_keyframe = lambda fr: False
@@ -81,7 +77,7 @@ def main(n_frames=80):
         es = np.linalg.norm(np.diff(est[a:b], axis=0), axis=-1).sum()
         gs = np.linalg.norm(np.diff(gt[a:b], axis=0), axis=-1).sum()
         print(f"scale[{a}:{b}] / base = {es / gs / s0:.4f}")
-    from motioncheck_ccm_slam_tpu.utils.csv_io import ate_rmse
+    from motioncheck_ccm_slam.utils.csv_io import ate_rmse
 
     rmse, mx = ate_rmse(est[3:], gt[3:])
     print(f"ATE rmse={rmse*100:.2f}cm max={mx*100:.2f}cm (Sim3-aligned)")

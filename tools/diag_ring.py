@@ -24,15 +24,13 @@ def main():
     ap.add_argument("--small", action="store_true")
     args = ap.parse_args()
 
-    import jax
+    from motioncheck_ccm_slam.utils import compile_cache
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.environ.get("MCSLAM_JAX_CACHE", "/tmp/jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 2)
+    compile_cache.enable()
 
-    from motioncheck_ccm_slam_tpu.config import (CameraParams, CapacityParams,
+    from motioncheck_ccm_slam.config import (CameraParams, CapacityParams,
                                                  Config)
-    from motioncheck_ccm_slam_tpu.cli import _build_system, _small_preset
+    from motioncheck_ccm_slam.cli import _build_system, _small_preset
 
     config = Config().replace(
         camera=CameraParams(k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0))
